@@ -1,11 +1,10 @@
-"""panagram_tpu — a TPU-native pan-genome k-mer engine.
+"""panagram_tpu — an accelerator pan-genome k-mer engine.
 
-A from-scratch reimplementation of the capabilities of Panagram
-(reference: /root/reference — an alignment-free pan-genome indexer/browser)
-designed TPU-first:
+A from-scratch reimplementation of the capabilities of Panagram (an
+alignment-free pan-genome indexer/browser) in JAX:
 
 * canonical 2-bit k-mer extraction, counting, and the pan-genome
-  presence-mask dictionary run on-device (JAX/XLA + Pallas kernels),
+  presence-mask dictionary run on-device (JAX/XLA),
 * the anchoring step (position -> pan-genome presence bitvector) is a
   streamed lookup + popcount + histogram pipeline,
 * multi-chip scaling uses ``jax.sharding.Mesh`` + ``shard_map`` with XLA
@@ -15,8 +14,7 @@ designed TPU-first:
   tabix gene/anno BEDs; see reference panagram/index.py:468-554).
 
 The engine uses 64-bit packed k-mer keys (k <= 32); x64 mode is enabled
-at import so u64 arrays exist on all backends (TPU emulates 64-bit ops
-with 32-bit pairs; the hot paths are memory-bound so this is cheap).
+at import so u64 arrays exist on all backends.
 """
 
 import jax

@@ -67,7 +67,7 @@ def _run_index(args):
         from .parallel.mesh import initialize_distributed
 
         initialize_distributed(args.coordinator, args.num_processes,
-                               args.process_id)
+                               args.process_id, args.mesh)
     from .pipeline import build_index
     from .index import Index
 
@@ -221,7 +221,7 @@ def main(argv=None):
         del argv[i : i + 2]
 
     parser = argparse.ArgumentParser(prog="panagram_tpu",
-                                     description="TPU-native pan-genome k-mer engine")
+                                     description="Accelerator pan-genome k-mer engine")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_index(sub)
     _add_view(sub)
@@ -230,6 +230,9 @@ def main(argv=None):
     _add_intros(sub)
 
     args = parser.parse_args(argv)
+    from .cache import enable_compile_cache
+
+    enable_compile_cache()
     run = {
         "index": _run_index,
         "view": _run_view,

@@ -3,7 +3,7 @@
 Replaces the reference's external `mash sketch -s 10000` + `mash triangle -E`
 (reference workflow/Snakefile:124-149).  Instead of MinHash estimation we
 compute *exact* pairwise shared-distinct-kmer counts from the pan-kmer
-dictionary's presence masks (a blocked popcount matmul on the MXU,
+dictionary's presence masks (a blocked popcount matmul on device,
 PanKmerDict.pairwise_shared), then apply the Mash distance transform
 D = -ln(2j/(1+j))/k.  The output format matches `mash triangle -E`
 (5 tab-separated columns: name1, name2, distance, p-value, shared/union)

@@ -1,6 +1,6 @@
 // Native BGZF block compressor/decompressor (zlib-based).
 //
-// TPU-native counterpart of the reference's htslib BGZF dependency
+// Native counterpart of the reference's htslib BGZF dependency
 // (reference cpp/Makefile:5,22 links libhts; cpp/anchor.cpp:46-54 writes
 // bitmaps through bgzf_write).  Here the hot host-side cost of the index
 // writer is DEFLATE; this library compresses/decompresses BGZF blocks in

@@ -1,6 +1,6 @@
 """Per-genome distinct canonical k-mer sets (sort-based counting).
 
-TPU-native replacement for KMC's counting stage (reference
+Device replacement for KMC's counting stage (reference
 workflow/Snakefile rule kmc_count; SURVEY §7.2 L-count): the multiset of
 canonical k-mers is reduced to a sorted distinct set by an on-device sort +
 neighbor-compare dedup.  Shapes stay static by padding with SENTINEL keys,
@@ -78,7 +78,19 @@ def distinct_kmers_chunked(code_arrays, k: int, chunk: int = DEFAULT_CHUNK) -> n
         return np.zeros(0, np.uint64)
     if len(parts) == 1:
         return parts[0]
-    return np.unique(np.concatenate(parts))
+    return sorted_distinct(np.concatenate(parts))
+
+
+def sorted_distinct(a: np.ndarray) -> np.ndarray:
+    """np.unique of a 1D array, as an in-place sort plus a neighbour
+    compare (`a` is consumed).  Some NumPy versions' np.unique takes
+    minutes on a genome's ~3e7 u64 keys where np.sort takes under a
+    second (PERF.md, PR 1)."""
+    a.sort()
+    keep = np.empty(len(a), bool)
+    keep[:1] = True
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]
 
 
 @partial(jax.jit, static_argnums=(1,))

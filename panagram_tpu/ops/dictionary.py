@@ -1,6 +1,6 @@
 """Pan-genome k-mer dictionary: sorted u64 keys -> N-bit presence masks.
 
-TPU-native replacement for the reference's one-hot KMC databases merged by
+Device replacement for the reference's one-hot KMC databases merged by
 `kmc_tools complex -ocsum` (reference panagram/index.py:391-426 and
 workflow/Snakefile:54-68): genome g contributes bit (g % 32) of word
 (g // 32), so a key's mask words reproduce exactly the ceil(N/32) 32-bit
@@ -100,7 +100,7 @@ class PanKmerDict:
 
     def pairwise_shared(self, block: int = 1 << 20) -> np.ndarray:
         """Genome x genome shared-distinct-kmer counts via a blocked
-        popcount matmul on the MXU (SURVEY §7.2 L-scale; the primitive
+        popcount matmul on device (SURVEY §7.2 L-scale; the primitive
         behind reference scripts/pairwise_comp.py and mash distances)."""
         n = self.ngenomes
         out = np.zeros((n, n), np.int64)
@@ -112,7 +112,7 @@ class PanKmerDict:
 
 @partial(jax.jit, static_argnums=(1,))
 def _pairwise_block(masks: jax.Array, ngenomes: int):
-    """bits^T @ bits over a block of mask rows; int8 operands hit the MXU."""
+    """bits^T @ bits over a block of mask rows (int32 accumulation)."""
     D = masks.shape[0]
     bits = _unpack_bits(masks, ngenomes)  # [D, N] int8
     return jnp.dot(bits.T.astype(jnp.int32), bits.astype(jnp.int32),

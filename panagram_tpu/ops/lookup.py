@@ -1,22 +1,19 @@
-"""Bucketed-hash dictionary lookup — the speed-of-light anchor path.
+"""Bucketed-hash dictionary lookup — the anchor path's probe.
 
 The reference's hot loop is KMC's per-position random access into its
 prefix/suffix arrays (reference cpp/anchor.cpp:148 GetCountersForRead;
 SURVEY §7.4.6 "sorted-array binary search has poor locality — prefer
 bucketed/hashed layout with one HBM read per probe").  XLA's searchsorted
-lowers to ~27 *dependent* narrow gathers; on TPU that is the dominant cost.
+lowers to ~27 *dependent* narrow gathers per query.
 
-This module implements exactly the recommended design, tuned to the
-measured TPU gather characteristics:
+This module implements the recommended design:
 
 * keys pass through an invertible 64-bit mix (splitmix64 finalizer), so
   their high bits are uniform;
-* the dictionary is ONE table of 2^b buckets, each a LANE-ALIGNED row of
-  `stride` u32s (64 or a multiple — measured 2.5-3x faster to gather than
-  odd widths) holding `cap` slots of (key_hi, key_lo, mask words);
+* the dictionary is ONE table of 2^b buckets, each a row of `stride` u32s
+  (a multiple of 64) holding `cap` slots of (key_hi, key_lo, mask words);
 * a query computes its bucket elementwise, gathers the row — a single
-  wide HBM gather per probe — and compares against all slots in parallel
-  (VPU);
+  contiguous read per probe — and compares against all slots in parallel;
 * there is NO overflow structure: the builder retries with more buckets
   until every bucket fits its keys (splitmix-uniform loads make the retry
   loop terminate immediately in practice), so one gather resolves every
@@ -66,11 +63,12 @@ def mix64(x: jax.Array) -> jax.Array:
 
 
 def row_pack(stride: int, n_buckets: int) -> int:
-    """Adjacent buckets packed per stored row so the minor dimension is a
-    multiple of 128 lanes: TPU tiles 2D arrays at (8, 128), so a [B, 64]
-    table would PAD to 128 lanes — 2x HBM at rest.  The packed-row form
-    [B/pack, stride*pack] is dense, and it is exactly the row shape the
-    Pallas merge probe DMAs."""
+    """Adjacent buckets stored per table row, so that a row is a multiple
+    of 128 u32 wide: the device table has the packed-row shape
+    [B/pack, stride*pack].  The form dates from a device that padded a
+    [B, 64] array to 128 lanes; on the GPU [B, stride] is just as dense,
+    and the packing only costs bucket_query a `pack`-times wider gather
+    per query (ROADMAP, speed item on the probe's gathered bytes)."""
     pack = 1
     while (stride * pack) % 128 or n_buckets % pack:
         pack *= 2
@@ -91,53 +89,35 @@ def table_geometry(D: int, W: int, mean_load: int | None = None):
     return nbits, cap, stride
 
 
-def hbm_limit_bytes() -> int:
-    """Per-chip HBM budget for capacity guards.  Real limit from the
-    backend when available; PANAGRAM_TPU_HBM_GB overrides (e.g. for
-    planning runs on the CPU backend)."""
+def hbm_limit_bytes() -> int | None:
+    """Per-device memory budget for capacity guards: the backend's own
+    limit, or PANAGRAM_TPU_HBM_GB when set (e.g. for planning runs on the
+    CPU backend).  None when neither says — then there is no budget."""
     env = os.environ.get("PANAGRAM_TPU_HBM_GB")
     if env:
         return int(float(env) * (1 << 30))
-    try:
-        import jax as _jax
-
-        stats = _jax.devices()[0].memory_stats() or {}
-        limit = int(stats.get("bytes_limit", 0))
-        if limit > 0:
-            return limit
-    except Exception:
-        pass
-    return 16 << 30   # v5e HBM
+    stats = jax.local_devices()[0].memory_stats() or {}
+    limit = int(stats.get("bytes_limit", 0))
+    return limit if limit > 0 else None
 
 
-def check_hbm_budget(D: int, W: int, n_shards: int = 1,
-                     what: str = "dictionary",
-                     device_layout: bool | str = True,
-                     include_table: bool = True):
-    """Fail LOUDLY (before any allocation) when a requested dictionary
-    cannot fit one chip's HBM, instead of OOM-crashing mid-build.
-
-    The budget math (SURVEY §7.4.2 — 100 plant genomes reach 1e9-1e10
-    distinct k-mers vs 16 GB HBM):
+def hbm_need_bytes(D: int, W: int, n_shards: int = 1,
+                   device_layout: bool | str = True,
+                   include_table: bool = True) -> tuple[int, int]:
+    """Modelled per-device bytes (bucket table, layout transients) for a
+    dictionary of D keys x W mask words split over n_shards:
 
       table bytes   = 2^ceil(log2(D / MEAN_LOAD)) * stride * 4
                     ~ (stride * 4 / MEAN_LOAD) * D ... 2x that after
-                      pow2 rounding (packed-row dense form)
+                      pow2 rounding
       per key       ~ 43-85 B  (W=1, stride 64)
                     ~ 85-171 B (W=4, stride 128)
       device layout + ~4x (8 + 4W) * D transients (keys/masks + sort
-                      in/out + scatter temps; the measured coefficient
-                      from the 1e8-key run — a HOST-side layout needs
+                      in/out + scatter temps — a HOST-side layout needs
                       only the finished table on device)
 
-    One 16 GB chip therefore anchors against a ~1.3e8-key table at W=1
-    (~6e7 at W=4); the all-device layout tops out at ~9e7 keys, beyond
-    which build_device routes the layout via host.  Past the table
-    ceiling itself, hash-shard across chips: `panagram_tpu index
-    --mesh N` splits the table by key range, so capacity scales linearly
-    with N."""
-    if D <= 0:
-        return
+    The transient coefficients are a model, not a fit to measurements on
+    the current device (ROADMAP reach item 1)."""
     per_shard = -(-D // max(n_shards, 1))
     nbits, cap, stride = table_geometry(per_shard, W)
     table = (1 << nbits) * stride * 4 if include_table else 0
@@ -149,16 +129,38 @@ def check_hbm_budget(D: int, W: int, n_shards: int = 1,
     elif device_layout == "sorted":
         # no grouping sort: inputs stay live (8 + 4W B/key) plus the i32
         # slot/base transients (~12 B/key) — about half the sorting
-        # layout's footprint, which keeps 1e8-key layouts on device
+        # layout's footprint
         layout = (8 + 4 * W + 12) * per_shard
     else:
         trans = 4 if device_layout else 0
         layout = (8 + 4 * W) * per_shard * trans
+    return table, layout
+
+
+def check_hbm_budget(D: int, W: int, n_shards: int = 1,
+                     what: str = "dictionary",
+                     device_layout: bool | str = True,
+                     include_table: bool = True):
+    """Fail LOUDLY (before any allocation) when a requested dictionary
+    cannot fit one device's memory (hbm_need_bytes' model against 80% of
+    hbm_limit_bytes), instead of running out of memory mid-build.  Past
+    the table ceiling itself, hash-shard across devices: `panagram_tpu
+    index --mesh N` splits the table by key range, so capacity scales
+    linearly with N.  No-op when the device reports no limit."""
+    if D <= 0:
+        return
+    limit = hbm_limit_bytes()
+    if limit is None:
+        return
+    per_shard = -(-D // max(n_shards, 1))
+    table, layout = hbm_need_bytes(D, W, n_shards, device_layout,
+                                   include_table)
     per_key_layout = layout / max(per_shard, 1)
     need = table + layout
-    budget = int(hbm_limit_bytes() * 0.8)  # reserve for chunk buffers
+    budget = int(limit * 0.8)  # reserve for chunk buffers
     if need > budget:
         # smallest shard count whose per-shard table fits
+        _, _, stride = table_geometry(per_shard, W)
         n_fit = n_shards
         while n_fit < 4096:
             n_fit *= 2
@@ -168,9 +170,9 @@ def check_hbm_budget(D: int, W: int, n_shards: int = 1,
                 break
         raise RuntimeError(
             f"{what}: {D:,} keys x {W} mask words needs ~{need / 1e9:.1f} GB "
-            f"per chip (bucket table {table / 1e9:.1f} GB + layout "
-            f"{layout / 1e9:.1f} GB) but the per-chip budget is "
-            f"~{budget / 1e9:.1f} GB. Shard the dictionary across chips: "
+            f"per device (bucket table {table / 1e9:.1f} GB + layout "
+            f"{layout / 1e9:.1f} GB) but the per-device budget is "
+            f"~{budget / 1e9:.1f} GB. Shard the dictionary across devices: "
             f"panagram_tpu index --mesh {max(n_fit, 2)} (key-range "
             f"hash sharding; capacity scales linearly with mesh size).")
 
@@ -259,12 +261,9 @@ class BucketedDict:
 
     def device_arrays(self):
         """Device handle of the bucket table in PACKED-ROW form
-        ([B/pack, stride*pack] — dense under TPU (8, 128) tiling, where
-        [B, stride] would pad its minor dim to 128 lanes and double the
-        at-rest HBM), MEMOIZED: jnp.asarray of a host table is an async
-        h2d of the whole (3x-padded) table — at 512 MB over this rig's
-        ~10-45 MB/s link a fresh upload per anchor genome cost ~50-100 s,
-        silently serialized into the first kernel dispatch."""
+        ([B/pack, stride*pack], see row_pack), MEMOIZED: jnp.asarray of a
+        host table is an h2d copy of the whole (3x-padded) table, which
+        must not be repeated for every anchor genome."""
         dev = getattr(self, "_dev", None)
         if dev is None:
             t = self.table
@@ -340,8 +339,8 @@ class BucketedDict:
             # mixing happens INSIDE the jitted layout: at the 1e8-key scale
             # a second keys-sized array alive across the call is the
             # difference between fitting HBM and not (pre-mixed keys pass
-            # straight through — no extra array at all).  Prefer the
-            # AOT-prewarmed executable (no compile-service re-entry).
+            # straight through — no extra array at all).  Use the
+            # AOT-prewarmed executable when one exists.
             if route == "chunked":
                 table, overflow = _layout_device_chunked(
                     keys, masks, nbits, cap, stride, D)
@@ -358,11 +357,11 @@ class BucketedDict:
                 pack = row_pack(stride, 1 << nbits)
                 tshape = ((1 << nbits) // pack, stride * pack)
                 if table.shape != tshape:
-                    # an EAGER reshape of a near-HBM-sized table COPIES
-                    # (measured OOM at the 8 GiB 1e8-key table): the
-                    # chunked driver already returns [B*stride/128, 128],
-                    # which for stride 64/128 IS the packed-row shape —
-                    # only oddball strides (192 etc.) retile here
+                    # an EAGER reshape of a near-memory-sized table can
+                    # COPY it: the chunked driver already returns
+                    # [B*stride/128, 128], which for stride 64/128 IS the
+                    # packed-row shape — only oddball strides (192 etc.)
+                    # retile here
                     table = table.reshape(tshape)
                 return cls(table=table, nbits=nbits, cap=cap, stride=stride,
                            ngenomes=ngenomes, k=k, nwords=W)
@@ -384,8 +383,7 @@ def layout_rows(m: jax.Array, masks: jax.Array, bucket: jax.Array,
     bucket_in_key=True asserts the bucket is the TOP bits of m (the
     single-table and genome-sharded layouts): sorting by m alone then
     yields (bucket, key) order, dropping one [D] operand from the sort —
-    at a 1e8-key table the layout runs within ~1 GB of the HBM ceiling,
-    so every operand counts.
+    near the device's memory ceiling every operand counts.
 
     Returns (table u32 FLAT [n_buckets * stride], overflow i32): rows
     beyond a bucket's capacity are dropped and counted in overflow (the
@@ -401,9 +399,8 @@ def layout_rows(m: jax.Array, masks: jax.Array, bucket: jax.Array,
         if pre_sorted:
             # input already globally sorted by mixed key (the device
             # builder's merge output) — the grouping sort is a no-op, and
-            # DROPPING it cuts the layout's HBM transients ~2x: the sort's
-            # in+out operand copies were what forced the >9e7-key host
-            # fallback (VERDICT r4 item 5)
+            # DROPPING it cuts the layout's transients ~2x (the sort's
+            # in+out operand copies)
             srt = (m,) + tuple(masks[:, w] for w in range(W))
         else:
             ops = (m,) + tuple(masks[:, w] for w in range(W))
@@ -424,8 +421,8 @@ def layout_rows(m: jax.Array, masks: jax.Array, bucket: jax.Array,
         bs, ms = srt[0], srt[1]
 
     # i32 throughout: every [D] transient here is 2x smaller than the
-    # x64 defaults, which matters exactly at the HBM-limit scales this
-    # path exists for (D < 2^31 always — the table ceiling is ~1.3e8)
+    # x64 defaults, which matters exactly at the memory-limit scales this
+    # path exists for (D < 2^31 always)
     counts = jnp.bincount(bs, length=n_buckets + 1).astype(jnp.int32)
     offsets = (jnp.cumsum(counts) - counts).astype(jnp.int32)
     slot = jnp.arange(D, dtype=jnp.int32) - offsets[bs]
@@ -433,9 +430,8 @@ def layout_rows(m: jax.Array, masks: jax.Array, bucket: jax.Array,
 
     ok = (bs < n_buckets) & (slot < cap)
     # ONE scatter per slot column, all with 1D payloads: a [D, slot_w]
-    # payload would be TPU-tiled (8, 128) with the minor dim padded
-    # 3 -> 128 lanes — a 42x memory blowup (64 GB at a 2^27-key device
-    # dictionary; the bigdict run caught it as a compile-time OOM)
+    # payload with a narrow minor dim can be padded by the device layout
+    # (a 42x blowup where minor dims pad to 128)
     cols = [(ms >> U64(32)).astype(jnp.uint32),
             (ms & U64(0xFFFFFFFF)).astype(jnp.uint32)]
     cols += [srt[2 + w] for w in range(W)]
@@ -464,9 +460,7 @@ def layout_rows(m: jax.Array, masks: jax.Array, bucket: jax.Array,
             lane = ((q64 & 1) << 6) | (innc & 63)
             table = table.at[r, lane].set(colv, mode="drop")
         table = table.reshape(flat_n)
-    # FLAT return: a [n_buckets, stride] device array is TPU-tiled (8, 128)
-    # — stride 64 pads 2x (16 GB for a 2^25-bucket table).  Callers reshape
-    # to a 128-multiple minor dim (free, layout-compatible) or to
+    # FLAT return: callers reshape to the packed-row form (row_pack) or to
     # [n_buckets, stride] host-side.
     return table, overflow.astype(jnp.int32)
 
@@ -513,11 +507,10 @@ def _layout_piece(table: jax.Array, keys: jax.Array, masks: jax.Array,
     sorted rows [start+lo, start+hi) — a complete range of buckets
     [base_bucket, base_bucket + B/P) — into the DONATED full table.
 
-    Only this pass's S-row slice produces transients; the 8.6 GB table
-    buffer is reused in place across passes (donate_argnums=0), which is
-    what keeps a 2^31-element (1e8-key) layout inside HBM where the
-    single-pass layout's key-proportional scatter temps crashed the
-    worker (VERDICT r4 item 5's P-pass design)."""
+    Only this pass's S-row slice produces transients; the table buffer
+    is reused in place across passes (donate_argnums=0), so a
+    2^31-element (1e8-key) layout needs no key-proportional scatter
+    temps."""
     W = masks.shape[1]
     slot_w = 2 + W
     n_buckets = (table.shape[0] * 128) // stride  # == 1 << nbits
@@ -579,21 +572,17 @@ def _layout_device_chunked(keys: jax.Array, masks: jax.Array, nbits: int,
         hi = int(bounds[p + 1] - start)
         # ALWAYS the jit path here, never the prewarmed AOT executable:
         # calling a Compiled object does not invalidate the donated table
-        # argument, so the runtime copies instead of aliasing — measured
-        # as a hard OOM at the 8 GiB 1e8-key table (the prewarm submit
-        # still seeds the compile-service memo, so this re-lowering costs
-        # only the ~5 s relink, once per process)
+        # argument, so the runtime would copy a table-sized buffer instead
+        # of aliasing it
         table, ov = _layout_piece(
             table, keys, masks, jnp.int32(start), jnp.int32(lo),
             jnp.int32(hi), jnp.int32(p * ((1 << nbits) // P)),
             nbits, cap, stride, S)
-        # per-piece completion barrier: letting all P donated calls queue
-        # asynchronously OOMed at this scale (in-flight pieces' scatter
-        # temps stack up); one ~40 ms sync per piece is noise next to the
-        # multi-second piece walls
+        # per-piece completion barrier: with all P donated calls queued
+        # asynchronously, the in-flight pieces' scatter temps stack up
         ovs.append(int(ov))
     # return the [B*stride/128, 128] form as-is: flattening 2^31 elements
-    # eagerly would dispatch a COPY of the whole near-HBM-sized table
+    # eagerly would dispatch a COPY of the whole near-memory-sized table
     return table, sum(ovs)
 
 
@@ -607,9 +596,8 @@ def bucket_query(canon: jax.Array, table: jax.Array,
 
     `table` may be the plain [B, stride] layout (mesh shard tables, host
     uploads in tests) or the PACKED-ROW [B/pack, stride*pack] device form
-    (device_arrays / build_device — dense under TPU tiling); the packing
-    is derived from the shapes and unpicked with a log2(pack) select
-    chain."""
+    (device_arrays / build_device); the packing is derived from the
+    shapes and unpicked with a log2(pack) select chain."""
     m = canon.astype(jnp.uint64) if pre_mixed else mix64(canon)
     qhi = (m >> U64(32)).astype(jnp.uint32)
     qlo = (m & U64(0xFFFFFFFF)).astype(jnp.uint32)
@@ -633,146 +621,3 @@ def bucket_query(canon: jax.Array, table: jax.Array,
     hit = hit & (m != U64(0xFFFFFFFFFFFFFFFF))[:, None]
     sel = jnp.where(hit[:, :, None], rows[:, :, 2:], jnp.uint32(0))
     return sel.sum(axis=1, dtype=jnp.uint32)
-
-
-@partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def bucket_query_sorted(canon: jax.Array, table: jax.Array,
-                        nbits: int, cap: int, nwords: int,
-                        pre_mixed: bool = False):
-    """Merge-probe variant of bucket_query (identical results).
-
-    Sort the queries by mixed key, then stream the table HBM->VMEM in
-    contiguous bucket slices (Pallas double-buffered DMA, pallas_kernels
-    .probe_sorted) instead of issuing one random wide gather per query —
-    the sequential-read pattern runs at HBM bandwidth where the gather is
-    issue-rate-bound (~1% of roofline; ROUND1_NOTES.md).
-
-    Cost structure and the three levers (measured, ROUND2_NOTES.md):
-    * the forward sort only has to GROUP queries by bucket — it is keyed
-      on the high 32 bits alone (buckets are the top nbits <= 32 bits),
-      a u32 radix sort instead of u64;
-    * the kernel's row-select matmul costs tile_q x span x stride MACs,
-      and span scales with tile_q x Bp/Qp — both are env-tunable
-      (PANAGRAM_TPU_TILE_Q / PANAGRAM_TPU_PROBE_SPAN);
-    * a tight span (1.5x the expected per-tile bucket coverage) leaves a
-      small tail of out-of-span queries: these are FIXED UP with a small
-      gather probe + scatter instead of abandoning the whole batch — the
-      lax.cond full fallback only triggers when the tail exceeds the
-      fixup capacity (~1.5% of Q), which needs a pathological key skew.
-    """
-    Q0 = canon.shape[0]
-    from . import pallas_kernels as pk
-
-    tile_q = max(int(os.environ.get("PANAGRAM_TPU_TILE_Q", pk.TILE_Q)), 1024)
-    m0 = canon.astype(jnp.uint64) if pre_mixed else mix64(canon)
-    S32 = jnp.uint32(0xFFFFFFFF)
-    Qp = -(-Q0 // tile_q) * tile_q
-    mhi0 = (m0 >> U64(32)).astype(jnp.uint32)
-    mlo0 = (m0 & U64(0xFFFFFFFF)).astype(jnp.uint32)
-    if Qp != Q0:
-        padv = jnp.full(Qp - Q0, S32, jnp.uint32)
-        mhi0 = jnp.concatenate([mhi0, padv])
-        mlo0 = jnp.concatenate([mlo0, padv])
-    pos = jnp.arange(Qp, dtype=jnp.int32)
-    return bucket_query_sorted_pre(mhi0, mlo0, pos, table, nbits, cap,
-                                   nwords, Q0)
-
-
-def bucket_query_sorted_pre(mhi0: jax.Array, mlo0: jax.Array,
-                            pos: jax.Array, table: jax.Array,
-                            nbits: int, cap: int, nwords: int,
-                            out_len: int):
-    """Core of bucket_query_sorted over PRE-SPLIT mixed query pairs in ANY
-    order: mhi0/mlo0 u32 [Qp] (all-ones pairs are padding), pos i32 [Qp]
-    giving each element's output row (a permutation prefix of
-    [0, out_len) plus pad positions >= out_len).  Returns rows u32
-    [out_len, W] indexed by pos — the entry point for the fused Pallas
-    pack+mix producer, whose output is phase-major rather than positional
-    (pallas_kernels.pack_mix_pallas)."""
-    from . import pallas_kernels as pk
-
-    B = 1 << nbits
-    # floor 1024: Mosaic tiles 1D u32 operands at T(1024) — smaller block
-    # shapes fail layout verification on hardware
-    tile_q = max(int(os.environ.get("PANAGRAM_TPU_TILE_Q", pk.TILE_Q)), 1024)
-    # Mosaic VMEM slices must be 128-lane aligned: adjacent buckets pack
-    # into one row until the row width is a multiple of 128 u32 (the
-    # kernel safely matches across all packed buckets — an exact (hi, lo)
-    # match in a neighbour bucket is impossible since equal hi implies the
-    # same bucket).  device_arrays/build_device tables arrive ALREADY in
-    # this packed-row form (dense under TPU tiling); a plain [B, stride]
-    # input is packed here via a layout-compatible reshape.
-    pack_in = max(B // table.shape[0], 1)
-    stride = table.shape[1] // pack_in
-    pack = row_pack(stride, B)
-    Bp = B // pack
-    if pack_in != pack:
-        table = table.reshape(Bp, stride * pack)
-    S32 = jnp.uint32(0xFFFFFFFF)
-    Qp = mhi0.shape[0]
-    assert Qp % tile_q == 0
-
-    # bucket-slice height (packed rows per tile): a tile of tile_q sorted
-    # uniform queries covers tile_q*Bp/Qp rows on average; 1.5x the mean
-    # (multiple of 8, floor 64) leaves a tiny out-of-span tail for the
-    # fixup.  Cap by VMEM scratch (~4 MB for the 2 DMA buffers).
-    expect = max(tile_q * Bp // Qp, 1)
-    span = min(Bp, max((1 << 19) // (stride * pack), 64),
-               max((-(-3 * expect // 2) + 7) & ~7, 64))
-    env_span = os.environ.get("PANAGRAM_TPU_PROBE_SPAN")
-    if env_span:
-        span = min(int(env_span), Bp)
-    fixup = max(Qp >> 6, tile_q)
-
-    # grouping sort keyed on the high 32 bits only (u32 radix beats u64;
-    # slot matching inside the kernel compares full (hi, lo) anyway, so
-    # same-hi ties need no order)
-    qhi, qlo, idxs = jax.lax.sort((mhi0, mlo0, pos), num_keys=1)
-    brow = (qhi >> jnp.uint32(32 - nbits)).astype(jnp.int32) \
-        >> (pack.bit_length() - 1)
-    blo = jnp.clip(brow[::tile_q], 0, Bp - span)
-    # padding / reserved all-ones keys never hit (kernel masks them), so
-    # they are exempt from the span requirement
-    is_pad = (qhi == S32) & (qlo == S32)
-    flags = ~((brow - jnp.repeat(blo, tile_q) < span) | is_pad)
-    n_out = jnp.sum(flags.astype(jnp.int32))
-    ok = n_out <= fixup
-
-    def fast(_):
-        rows_t = pk.probe_sorted(qhi, qlo, blo, table,
-                                 nbits, cap, nwords, span=span, pack=pack,
-                                 tile_q=tile_q)
-        # compact the out-of-span positions with a SINGLE-operand sort:
-        # bit 31 = in-span, low bits = position (Qp < 2^31), so ascending
-        # order is "flagged first, position-stable" without carrying a
-        # separate iota operand (the scatter this replaced is issue-rate
-        # bound; see ops.anchor._compact_runs).  idx_out is a slice of a
-        # permutation: entries past n_out are DISTINCT unflagged positions
-        # whose fixup writes below are masked to their original rows.
-        fiota = jnp.arange(Qp, dtype=jnp.uint32)
-        fkey = jnp.where(flags, fiota, fiota | jnp.uint32(1 << 31))
-        (srt_f,) = jax.lax.sort((fkey,), num_keys=1)
-        idx_out = (jax.lax.slice(srt_f, (0,), (fixup,))
-                   & jnp.uint32(0x7FFFFFFF)).astype(jnp.int32)
-        valid_fix = jnp.arange(fixup, dtype=jnp.int32) < n_out
-        sub_m = (qhi[idx_out].astype(jnp.uint64) << U64(32)) \
-            | qlo[idx_out].astype(jnp.uint64)
-        fixed = bucket_query(sub_m, table, nbits, cap, nwords,
-                             pre_mixed=True)
-        rows_fixed = tuple(
-            rows_t[w].at[idx_out].set(
-                jnp.where(valid_fix, fixed[:, w], rows_t[w][idx_out]))
-            for w in range(nwords))
-        # inverse permutation by sorting on the output position (sort-based
-        # permute: a gather here would reintroduce the issue-rate wall)
-        srt = jax.lax.sort((idxs,) + rows_fixed, num_keys=1)
-        return jnp.stack(srt[1:], axis=1)[:out_len]
-
-    def slow(_):
-        m = (mhi0.astype(jnp.uint64) << U64(32)) | mlo0.astype(jnp.uint64)
-        rows = bucket_query(m, table, nbits, cap, nwords, pre_mixed=True)
-        srt = jax.lax.sort((pos,) + tuple(rows[:, w] for w in range(nwords)),
-                           num_keys=1)
-        return jnp.stack(srt[1:], axis=1)[:out_len]
-
-    return jax.lax.cond(ok, fast, slow, None)

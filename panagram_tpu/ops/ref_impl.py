@@ -1,6 +1,6 @@
 """Pure-numpy reference implementation of the k-mer engine.
 
-This is the correctness oracle for the TPU kernels: a direct, slow,
+This is the correctness oracle for the device kernels: a direct, slow,
 obviously-correct restatement of what KMC + the reference anchoring pipeline
 compute (reference panagram/index.py:932-969 and cpp/anchor.cpp:112-195):
 

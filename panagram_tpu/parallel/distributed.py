@@ -1,8 +1,8 @@
 """Multi-host index build: genomes data-parallel across processes.
 
 The reference scales its build with Snakemake job parallelism on one host
-(SURVEY §2.7 P1).  Here the same DAG runs process-per-host (one TPU host
-each): every process counts the genomes it owns (round-robin by genome id)
+(SURVEY §2.7 P1).  Here the same DAG runs one process per card (each pinned
+to its own card, parallel/mesh.py): every process counts the genomes it owns (round-robin by genome id)
 and anchors its share of anchor genomes; coordination is file-based on the
 shared index directory — the same "resume = skip completed artifacts"
 property as the reference's rule DAG (SURVEY §5.3), so a lost host is

@@ -23,7 +23,7 @@ is requested (``panagram_tpu index --mesh N``):
   the full-resolution bitmap.
 
 Everything compiles under jit over a ``jax.sharding.Mesh`` and runs
-unmodified on a virtual 8-device CPU mesh (tests) or a TPU slice.
+unmodified on a virtual 8-device CPU mesh (tests) or on GPU cards.
 """
 
 from __future__ import annotations
@@ -492,7 +492,7 @@ def sharded_anchor_chunk(mesh, sbd: ShardedBucketedDict,
 @dataclasses.dataclass
 class GenomeShardedDict:
     """Bit-plane sharded dictionary (SURVEY §2.7 P5): every shard holds
-    ALL keys but only its slice of the mask words — the TPU twin of the
+    ALL keys but only its slice of the mask words — the device twin of the
     reference's one-KMC-DB-per-32-genomes layout (index.py:391-426), where
     each database contributes an independent byte slice of the bitmap row.
 

@@ -3,7 +3,7 @@
 # scripts/preprocess.sh:1-87, the pre-Snakemake flow: per-sample KMC count
 # -> 2^i set_counts relabel -> per-32-genome complex-union -> index).
 #
-# The TPU engine folds counting, the one-hot bit assignment (bit g%32 of
+# The device engine folds counting, the one-hot bit assignment (bit g%32 of
 # word g//32) and the union merge into the device dictionary builder, so
 # the manual flow maps to explicit CLI stages with on-disk checkpoints:
 #

@@ -7,6 +7,7 @@ from panagram_tpu.ops.dictionary import build_dictionary
 from panagram_tpu.ops.lookup import BucketedDict, bucket_query, mix64, mix64_np
 from panagram_tpu.ops.ref_impl import (
     anchor_np,
+    canonical_kmers_np,
     genome_kmer_set,
     masks_to_bytes_np,
     popcount_np,
@@ -62,63 +63,54 @@ def test_bucket_query_matches_oracle(rng, ngenomes):
 
 @pytest.mark.parametrize("ngenomes", [3, 40])
 def test_bucket_query_sorted_matches_gather(rng, ngenomes):
-    """The Pallas merge probe must return byte-identical rows to the wide
-    gather probe for hits, misses, and N-window sentinels — including a
-    query count that is not a multiple of the kernel tile."""
+    """bucket_query over both table forms it accepts — the packed-row
+    device table (device_arrays) and a plain [B, stride] table — equals
+    the numpy oracle for hits, misses and N-window sentinels, at a query
+    count that is no power of two.  (The name is the one this test had
+    when it compared the since-removed sorted merge probe with this
+    gather; it is kept so the test's record stays continuous.)"""
     import jax.numpy as jnp
 
     from panagram_tpu.ops.codec import pack_kmers
-    from panagram_tpu.ops.lookup import bucket_query_sorted
 
     seqs = [random_seq(rng, 2200, n_frac=0.02) for _ in range(ngenomes)]
     sets = [genome_kmer_set([s], K) for s in seqs]
     d = build_dictionary(sets, K)
     bd = BucketedDict.build(d.keys, d.masks, ngenomes, K)
-    (t1,) = bd.device_arrays()
 
-    seq = seqs[0] + random_seq(rng, 700, n_frac=0.1)  # extra misses + Ns
+    seq = seqs[0] + random_seq(rng, 701, n_frac=0.1)  # extra misses + Ns
+    want = anchor_np(seq, K, d.keys, d.masks)
     canon, _ = pack_kmers(jnp.asarray(seq_to_codes(seq)), K)
-    want = np.asarray(bucket_query(canon, t1, bd.nbits, bd.cap, bd.nwords))
-    got = np.asarray(
-        bucket_query_sorted(canon, t1, bd.nbits, bd.cap, bd.nwords))
-    assert np.array_equal(got, want)
-
-
-def test_bucket_query_sorted_span_fixup_and_fallback(rng, monkeypatch):
-    """A deliberately tiny span pushes queries out of their tile's VMEM
-    slice: a tail small enough for the fixup capacity is patched by the
-    gather-probe fixup (fast path), a larger one routes the whole batch
-    to the gather fallback — results must be identical either way."""
-    import jax.numpy as jnp
-
-    from panagram_tpu.ops import lookup
-
-    keys = np.unique(rng.integers(0, 1 << 62, 8000, dtype=np.uint64))
-    masks = rng.integers(1, 1 << 31, (len(keys), 1)).astype(np.uint32)
-    bd = BucketedDict.build(keys, masks, 30, 21)
-    assert (1 << bd.nbits) > 8  # span below forces out-of-span queries
-    (t1,) = bd.device_arrays()
-
-    monkeypatch.setenv("PANAGRAM_TPU_PROBE_SPAN", "8")
-    lookup.bucket_query_sorted.clear_cache()  # env is read at trace time
-    try:
-        # fixup path: ~1200 out-of-span queries < fixup capacity (2048)
-        q = jnp.asarray(np.concatenate(
-            [keys[:1000], rng.integers(0, 1 << 62, 200, dtype=np.uint64)]))
-        want = np.asarray(bucket_query(q, t1, bd.nbits, bd.cap, bd.nwords))
+    assert canon.shape[0] & (canon.shape[0] - 1)      # ragged count
+    (packed,) = bd.device_arrays()
+    plain = jnp.asarray(bd.table)                     # [B, stride]
+    for table in (packed, plain):
         got = np.asarray(
-            lookup.bucket_query_sorted(q, t1, bd.nbits, bd.cap, bd.nwords))
+            bucket_query(canon, table, bd.nbits, bd.cap, bd.nwords))
         assert np.array_equal(got, want)
 
-        # fallback path: ~5000 out-of-span queries > fixup capacity
-        q2 = jnp.asarray(np.concatenate(
-            [keys[:4000], rng.integers(0, 1 << 62, 1000, dtype=np.uint64)]))
-        want2 = np.asarray(bucket_query(q2, t1, bd.nbits, bd.cap, bd.nwords))
-        got2 = np.asarray(
-            lookup.bucket_query_sorted(q2, t1, bd.nbits, bd.cap, bd.nwords))
-        assert np.array_equal(got2, want2)
-    finally:
-        lookup.bucket_query_sorted.clear_cache()
+
+@pytest.mark.parametrize("k", [5, 16, 21, 31])
+def test_pack_mix_matches_oracle(rng, k):
+    """mix64(pack_kmers_packed) — the probe's input — equals the numpy
+    oracle's splitmix64 of the canonical k-mers, with N windows mapped to
+    mix64(SENTINEL), across odd/even k and both u32 halves."""
+    import jax.numpy as jnp
+
+    from panagram_tpu.ops.codec import SENTINEL, pack_kmers_packed
+
+    L = 16 * 1024 * 3 + 7
+    codes = rng.integers(0, 4, L).astype(np.uint8)
+    codes[rng.choice(L, L // 50, replace=False)] = 255
+    packed, nmask, L2 = pack_bases_np(codes)
+    canon, valid = pack_kmers_packed(jnp.asarray(packed),
+                                     jnp.asarray(nmask), L2, k)
+    got = np.asarray(mix64(canon))
+
+    want_c, want_v = canonical_kmers_np(codes, k)
+    want = mix64_np(np.where(want_v, want_c, SENTINEL))
+    assert np.array_equal(np.asarray(valid), want_v)
+    assert np.array_equal(got, want)
 
 
 def test_bucket_build_retries_until_fit(rng):
@@ -498,16 +490,17 @@ def test_hbm_budget_guard(monkeypatch):
     assert stride == 64 and cap == 21
 
 
-def test_query_packed_pallas_path_matches_gather(rng, monkeypatch):
-    """_query_packed with the fused pack+mix producer (phase-major mixed
-    pairs + bucket_query_sorted_pre, forced on via PANAGRAM_TPU_PALLAS=1
-    in interpret mode) == the plain gather probe in position order."""
+def test_query_packed_pallas_path_matches_gather(rng):
+    """_query_packed — the XLA codec + one-gather probe every anchor chunk
+    kernel runs — equals anchor_np position by position, on a packed-row
+    device table with N windows and a ragged position count.  (The name
+    is the one this test had when _query_packed also had a Pallas branch,
+    since removed; it is kept so the test's record stays continuous.)"""
     import jax.numpy as jnp
 
     from panagram_tpu.ops import anchor as anchor_mod
     from panagram_tpu.ops.anchor import pack_bases_combined
-    from panagram_tpu.ops.codec import pack_kmers_packed
-    from panagram_tpu.ops.lookup import BucketedDict, bucket_query
+    from panagram_tpu.ops.lookup import BucketedDict
     from panagram_tpu.ops.ref_impl import build_dict_np, canonical_kmers_np
 
     k = 17
@@ -516,7 +509,7 @@ def test_query_packed_pallas_path_matches_gather(rng, monkeypatch):
     canon_g, valid_g = canonical_kmers_np(genome, k)
     keys, masks = build_dict_np([np.unique(canon_g[valid_g])])
     bd = BucketedDict.build(keys, masks, 1, k)
-    t1 = jnp.asarray(bd.table)
+    (t1,) = bd.device_arrays()
 
     codes = genome.copy()
     bad = rng.choice(glen, glen // 100, replace=False)
@@ -526,14 +519,28 @@ def test_query_packed_pallas_path_matches_gather(rng, monkeypatch):
     packed = jnp.asarray(inbuf[:n4])
     nmask = jnp.asarray(inbuf[n4:])
 
-    monkeypatch.setenv("PANAGRAM_TPU_PALLAS", "1")
     got = np.asarray(anchor_mod._query_packed(
         packed, nmask, L, k, t1, bd.nbits, bd.cap, bd.nwords))
-
-    canon, _ = pack_kmers_packed(packed, nmask, L, k)
-    want = np.asarray(bucket_query(canon, t1, bd.nbits, bd.cap, bd.nwords))
+    want = anchor_np(codes, k, keys, masks)
     assert got.shape == want.shape
     assert np.array_equal(got, want)
+
+
+def test_hbm_limit_without_device_limit(monkeypatch):
+    """A device that reports no memory limit (the CPU backend) gets no
+    assumed size: no budget, and the guard never fires; the env override
+    still sets one."""
+    from panagram_tpu.ops import lookup
+
+    monkeypatch.delenv("PANAGRAM_TPU_HBM_GB", raising=False)
+    assert lookup.hbm_limit_bytes() is None
+    lookup.check_hbm_budget(int(1e12), 4)     # would need ~TBs: no raise
+    table, layout = lookup.hbm_need_bytes(int(1e8), 1)
+    assert table == (1 << 24) * 64 * 4 and layout > 0
+    monkeypatch.setenv("PANAGRAM_TPU_HBM_GB", "0.5")
+    assert lookup.hbm_limit_bytes() == 1 << 29
+    with pytest.raises(RuntimeError, match="--mesh"):
+        lookup.check_hbm_budget(int(1e8), 1)
 
 
 @pytest.mark.parametrize("ngenomes,pre_sorted", [(1, True), (1, False),

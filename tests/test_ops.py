@@ -76,6 +76,16 @@ def test_distinct_kmers(rng, k):
     assert np.array_equal(want, got_chunked)
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 5000])
+def test_sorted_distinct_matches_unique(rng, n):
+    """The count stage's sort + neighbour-compare dedup == np.unique,
+    duplicates and the empty/one-element edges included."""
+    from panagram_tpu.ops.count import sorted_distinct
+
+    a = rng.integers(0, max(n // 3, 1), n).astype(np.uint64)
+    assert np.array_equal(sorted_distinct(a.copy()), np.unique(a))
+
+
 @pytest.mark.parametrize("ngenomes", [2, 6, 40])
 def test_dictionary_and_anchor(rng, ngenomes):
     k = 11

@@ -12,8 +12,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

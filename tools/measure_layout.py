@@ -6,8 +6,8 @@ host copy of keys, masks, or the finished table (SURVEY §7.4.2 — 100-genome
 pangenomes reach O(1e9-1e10) distinct k-mers; per-chip shards are O(1e8-1e9),
 so the per-shard layout must run on device, not as a host argsort).
 
-Keys are generated ON DEVICE (threefry bits -> u64); nothing of size D ever
-crosses the link.  Random u64 keys stand in for splitmix64-mixed canonical
+Keys are generated ON DEVICE (threefry bits -> u64); nothing of size D is ever
+copied from the host.  Random u64 keys stand in for splitmix64-mixed canonical
 k-mers (the layout only sees mixed keys, which are uniform by construction;
 expected collisions at 1e8 keys are ~2.7e-4 — irrelevant to timing).
 
@@ -21,12 +21,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat:
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

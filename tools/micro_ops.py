@@ -1,9 +1,7 @@
 #!/usr/bin/env python
 """Micro-benchmarks of the primitive ops the RLE/palette tails are built
 from (sort vs scatter vs gather at the relevant sizes) — used to choose
-between sort-based and scatter-based inverse permutations on the real
-chip (XLA lowers TPU scatters via sort+segment ops in some cases, so
-intuition from GPU issue rates does not transfer)."""
+between sort-based and scatter-based inverse permutations on the card."""
 
 import os
 import sys
@@ -11,12 +9,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat:
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def timed(label, fn, reps=3):

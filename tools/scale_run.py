@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measured end-to-end scale run for the BASELINE.md config table.
+"""End-to-end scale run: one founder-structured pan-genome through the CLI path.
 
 Generates a founder-structured pan-genome (default: the 30-genome k=31
 row), builds the full index through the production CLI path
@@ -19,12 +19,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat:
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def write_fasta(path, name, codes, width=80):

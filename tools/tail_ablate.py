@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Ablation of the RLE/palette tail's primitive costs at chunk scale —
 which of change-flags / cumulative scans / compaction scatters / palette
-sorts actually costs time on hardware (per-stage dispatch latency is
-~30-50 ms on this rig, so every stage is measured as a DELTA against a
-baseline program that only reduces the input)."""
+sorts actually costs time on hardware (every stage is measured as a DELTA
+against a baseline program that only reduces the input, so per-call
+dispatch latency cancels)."""
 
 import os
 import sys
@@ -11,12 +11,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat:
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def timed(label, fn, reps=4):

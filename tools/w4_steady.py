@@ -21,12 +21,11 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat:
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from panagram_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
